@@ -20,11 +20,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 
 def main():
-    os.environ.setdefault("VIREO_COMPILE_CACHE", os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".jax_cache"))
-    from vireo_tpu.utils.platform import apply_platform_env
-    apply_platform_env()
+    from vireo_tpu.utils.platform import apply_compile_cache
+    apply_compile_cache()
     import scipy.sparse as sp
     from vireo_tpu.ops.counts import counts_from_scipy, HybridCounts
     from vireo_tpu.engine.wrap import vireo_wrap

@@ -4,7 +4,7 @@ Round-2 review: the 294x headline compares inner EM iteration rates;
 BASELINE.md also wants end-to-end configs. This script times the
 REFERENCE implementation's full pipeline (vireo_wrap: n_init warm
 restarts -> best refit -> doublet) on the same synthetic
-100k-cell x 30k-variant x 16-donor pool the TPU e2e benchmark uses
+100k-cell x 30k-variant x 16-donor pool the e2e benchmark uses
 (benchmarks/e2e_100k.py), with the same n_init/seed, using both host
 cores via the reference's own multiprocessing fan-out.
 

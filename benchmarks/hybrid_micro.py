@@ -20,12 +20,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-os.environ.setdefault("VIREO_COMPILE_CACHE", os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    ".jax_cache"))
-from vireo_tpu.utils.platform import apply_platform_env  # noqa: E402
+from vireo_tpu.utils.platform import apply_compile_cache  # noqa: E402
 
-apply_platform_env()
+apply_compile_cache()
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -13,7 +13,6 @@ Prints one JSON line. Env: IO_VARS / IO_CELLS / IO_DENSITY, IO_DIR
 (reuse an existing directory instead of regenerating).
 """
 
-import gzip
 import json
 import os
 import sys
@@ -24,32 +23,6 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def write_cellsnp_dir(out_dir, AD, DP, n_cell):
-    """Minimal cellSNP_mat directory the readers accept."""
-    import scipy.io
-    import scipy.sparse as sp
-    os.makedirs(out_dir, exist_ok=True)
-    n_var = AD.shape[0]
-
-    t0 = time.time()
-    scipy.io.mmwrite(os.path.join(out_dir, "cellSNP.tag.AD.mtx"),
-                     sp.coo_matrix(AD), field="integer")
-    scipy.io.mmwrite(os.path.join(out_dir, "cellSNP.tag.DP.mtx"),
-                     sp.coo_matrix(DP), field="integer")
-
-    with gzip.open(os.path.join(out_dir, "cellSNP.base.vcf.gz"),
-                   "wt") as f:
-        f.write("##fileformat=VCFv4.2\n")
-        f.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
-        for i in range(n_var):
-            f.write("1\t%d\t.\tA\tC\t.\tPASS\t.\n" % (i + 1))
-
-    with open(os.path.join(out_dir, "cellSNP.samples.tsv"), "w") as f:
-        for c in range(n_cell):
-            f.write("CELL%06d-1\n" % c)
-    return time.time() - t0
-
-
 def main():
     n_var = int(os.environ.get("IO_VARS", 30_000))
     n_cell = int(os.environ.get("IO_CELLS", 100_000))
@@ -58,12 +31,14 @@ def main():
         "IO_DIR", "/tmp/vireo_io_scale_%dx%d" % (n_var, n_cell))
 
     if not os.path.exists(os.path.join(out_dir, "cellSNP.tag.AD.mtx")):
-        from vireo_tpu.sim.synth import synth_pool_counts
+        from vireo_tpu.sim.synth import synth_pool_counts, write_cellsnp_dir
         t0 = time.time()
         d = synth_pool_counts(n_var=n_var, n_cell=n_cell, n_donor=16,
                               doublet_rate=0.08, density=density, seed=0)
         gen_s = time.time() - t0
-        write_s = write_cellsnp_dir(out_dir, d["AD"], d["DP"], n_cell)
+        t0 = time.time()
+        write_cellsnp_dir(out_dir, d["AD"], d["DP"])
+        write_s = time.time() - t0
         print("[io_scale] generated %.1fs, wrote %.1fs -> %s"
               % (gen_s, write_s, out_dir), file=sys.stderr)
 

@@ -3,11 +3,11 @@
 Launches N worker processes on this machine (each with its own set of
 virtual CPU devices) that form one jax.distributed job, build a global
 cell-sharded mesh spanning all processes, and run the shard_map COO
-fit with cross-process collectives (gloo on CPU; on TPU pods the same
-code rides ICI/DCN). Verifies the multi-process ELBO equals the
+fit with cross-process collectives (gloo on CPU; on GPU hosts the same
+code rides NCCL). Verifies the multi-process ELBO equals the
 single-process one.
 
-This exercises exactly the code path a TPU pod uses —
+This exercises exactly the code path a multi-host run uses —
 `initialize_distributed` + `make_mesh` + `sharded_fit_vb` — with DCN
 emulated by localhost TCP.
 
@@ -184,7 +184,7 @@ def main():
     # throughput: same global problem and SAME total device count (4),
     # run inside one process vs split across `nproc` processes whose
     # collectives ride localhost TCP — the measured cross-process
-    # overhead to report next to the analytic ICI projection. (All
+    # overhead to report next to a multi-card measurement. (All
     # virtual devices share these physical cores, so true multi-host
     # speedup cannot be measured here, only the comm overhead bound.)
     iters_single = 30.0 / single["fit_s"]

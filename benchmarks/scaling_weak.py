@@ -17,8 +17,8 @@ sizing). This benchmark measures what localhost CAN measure honestly:
   all-reduce.
 
 Efficiency(P) = T(1 proc) / T(P procs) for the same per-process work.
-On a TPU pod the same code path rides ICI (~1 us latency, ~100 GB/s)
-instead of localhost TCP, so the TCP number is a lower bound.
+On a GPU host the same code path rides NVLink through NCCL instead of
+localhost TCP, so the TCP number is a lower bound.
 
 P > n_cores runs are reported with "oversubscribed": true — they bound
 contention, not communication — and are excluded from the efficiency

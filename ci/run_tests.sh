@@ -5,7 +5,7 @@
 set -e
 cd "$(dirname "$0")/.."
 python -m pytest tests/ -q
-VIREO_PLATFORM=cpu python examples/bulk_demo.py
-VIREO_PLATFORM=cpu python examples/clones_demo.py
-VIREO_PLATFORM=cpu LP_VARS=400 LP_CELLS=600 LP_DONORS=3 LP_INIT=4 \
+JAX_PLATFORMS=cpu python examples/bulk_demo.py
+JAX_PLATFORMS=cpu python examples/clones_demo.py
+JAX_PLATFORMS=cpu LP_VARS=400 LP_CELLS=600 LP_DONORS=3 LP_INIT=4 \
     python examples/large_pool_demo.py

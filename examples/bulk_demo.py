@@ -5,7 +5,7 @@ Estimates donor fractions psi from a simulated multiplexed BULK sample
 then runs the likelihood-ratio test against an equal-abundance null —
 the `VireoBulk` surface of the reference (vireo_bulk.py:8-167).
 
-Usage: [VIREO_PLATFORM=cpu] python examples/bulk_demo.py
+Usage: [JAX_PLATFORMS=cpu] python examples/bulk_demo.py
 """
 
 import os
@@ -15,8 +15,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from vireo_tpu.utils.platform import apply_platform_env  # noqa: E402
-apply_platform_env()
+from vireo_tpu.utils.platform import apply_compile_cache  # noqa: E402
+apply_compile_cache()
 
 from vireo_tpu import VireoBulk, LikRatio_test  # noqa: E402
 

@@ -14,8 +14,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from vireo_tpu.utils.platform import apply_platform_env  # noqa: E402
-apply_platform_env()  # honor VIREO_PLATFORM / VIREO_COMPILE_CACHE
+from vireo_tpu.utils.platform import apply_compile_cache  # noqa: E402
+apply_compile_cache()
 
 from vireo_tpu import BinomMixtureVB  # noqa: E402
 from vireo_tpu.io.matrices import read_mtx  # noqa: E402

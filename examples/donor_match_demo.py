@@ -12,7 +12,7 @@ The estimated-donor VCF comes from a seeded genotype-free vireo run on
 the bundled demo data (regenerated on the fly unless OUT_DIR already
 holds one), aligned against the bundled donor genotypes.
 
-Usage: [VIREO_PLATFORM=cpu] python examples/donor_match_demo.py [out]
+Usage: [JAX_PLATFORMS=cpu] python examples/donor_match_demo.py [out]
 """
 
 import os
@@ -22,8 +22,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from vireo_tpu.utils.platform import apply_platform_env  # noqa: E402
-apply_platform_env()
+from vireo_tpu.utils.platform import apply_compile_cache  # noqa: E402
+apply_compile_cache()
 
 DATA = "/root/reference/data"
 out_dir = sys.argv[1] if len(sys.argv) > 1 else "/tmp/vireo_donor_match"

@@ -7,7 +7,7 @@ doublet detection, derives the hard calls with the notebook's 0.9
 thresholds, plots the assignment-probability and mean-allelic-ratio
 heatmaps, and prints a donor-size table.
 
-Usage: [VIREO_PLATFORM=cpu] python examples/donors_demo.py [data] [out]
+Usage: [JAX_PLATFORMS=cpu] python examples/donors_demo.py [data] [out]
 """
 
 import os
@@ -17,8 +17,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from vireo_tpu.utils.platform import apply_platform_env  # noqa: E402
-apply_platform_env()  # honor VIREO_PLATFORM / VIREO_COMPILE_CACHE
+from vireo_tpu.utils.platform import apply_compile_cache  # noqa: E402
+apply_compile_cache()
 
 from vireo_tpu import vireo_wrap  # noqa: E402
 from vireo_tpu.io.matrices import read_cellSNP  # noqa: E402

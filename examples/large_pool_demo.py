@@ -20,7 +20,7 @@ The default sizing here is laptop-friendly; scale the env knobs up on
 real hardware (benchmarks/e2e_100k.py and e2e_hybrid.py run the
 30k x 100k x 16 north star).
 
-Usage: [VIREO_PLATFORM=cpu] python examples/large_pool_demo.py
+Usage: [JAX_PLATFORMS=cpu] python examples/large_pool_demo.py
 Env: LP_VARS/LP_CELLS/LP_DONORS/LP_INIT
 """
 
@@ -31,8 +31,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from vireo_tpu.utils.platform import apply_platform_env  # noqa: E402
-apply_platform_env()
+from vireo_tpu.utils.platform import apply_compile_cache  # noqa: E402
+apply_compile_cache()
 
 from vireo_tpu import vireo_wrap  # noqa: E402
 from vireo_tpu.ops.counts import counts_from_scipy  # noqa: E402

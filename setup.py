@@ -1,4 +1,4 @@
-"""vireo-tpu: TPU-native donor deconvolution for multiplexed scRNA-seq."""
+"""vireo-tpu: JAX donor deconvolution for multiplexed scRNA-seq."""
 
 from setuptools import setup, find_packages
 
@@ -7,12 +7,14 @@ exec(open("./vireo_tpu/version.py").read())
 setup(
     name="vireo-tpu",
     version=__version__,  # noqa: F821
-    description="TPU-native donor deconvolution for multiplexed "
-                "single-cell RNA-seq (JAX/XLA)",
+    description="Donor deconvolution for multiplexed single-cell "
+                "RNA-seq on GPUs (JAX/XLA)",
     packages=find_packages(exclude=("tests",)),
     package_data={"vireo_tpu.io._native": ["*.cpp"]},
     python_requires=">=3.10",
-    install_requires=["numpy", "scipy", "jax", "matplotlib"],
+    install_requires=["numpy", "scipy", "jax"],
+    # figures (the CLI's GT-distance plot) are skipped without it
+    extras_require={"plot": ["matplotlib"]},
     entry_points={
         "console_scripts": [
             "vireo = vireo_tpu.cli.vireo_cli:main",

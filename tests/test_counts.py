@@ -127,7 +127,7 @@ def test_densify_overflow_promotes(capsys):
 
 
 def test_em_on_auto_int8_matches_f64(small_data):
-    """The int8 MXU layout runs the same EM trajectory as float64 at
+    """The int8 dense layout runs the same EM trajectory as float64 at
     small scale (counts are exact integers in both)."""
     from vireo_tpu.ops.counts import counts_from_scipy, dense_counts
     from vireo_tpu.models.vireo import (VireoConfig, init_state,
@@ -204,8 +204,7 @@ def test_coo_exact_env_knob(monkeypatch, small_data):
 
 def test_densify_and_pack_chunked_scatter(small_data, monkeypatch):
     """The chunked device scatter (fori_loop over nnz blocks — the
-    TPU-scale path, where one 30M-index scatter pads 64x and OOMs)
-    produces the same dense/packed layouts as the single-call path."""
+    path every large pool takes) produces the same dense/packed layouts as the single-call path."""
     import os
     AD, DP, _ = small_data
     s = sparse_counts(AD, DP, dtype=jnp.float64, pad_multiple=64)
@@ -419,3 +418,64 @@ def test_host_union_does_not_mutate_caller(monkeypatch):
     np.testing.assert_array_equal(rows, [0, 1])
     np.testing.assert_array_equal(a, [3.0, 3.0])
     np.testing.assert_array_equal(d, [4.0, 5.0])
+
+
+class _FakeDevice:
+    def __init__(self, platform, stats):
+        self.platform, self.device_kind, self._stats = platform, "fake", stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize("platform,stats,want", [
+    ("cpu", None, 16 * 2**30),
+    ("gpu", {"bytes_limit": 60 * 2**30}, 0.55 * 60 * 2**30),
+    ("gpu", {}, RuntimeError),
+    ("gpu", None, RuntimeError),
+])
+def test_device_dense_budget(monkeypatch, platform, stats, want):
+    """0.55 x bytes_limit where the device reports one; the 16 GiB
+    default applies to the CPU platform only — a GPU without a limit
+    is an error, not a guess."""
+    import jax
+    from vireo_tpu.ops import counts as C
+    monkeypatch.delenv("VIREO_DENSE_BUDGET_GB", raising=False)
+    monkeypatch.setattr(jax, "devices",
+                        lambda *a: [_FakeDevice(platform, stats)])
+    if want is RuntimeError:
+        with pytest.raises(RuntimeError, match="no memory limit"):
+            C.device_dense_budget()
+    else:
+        assert C.device_dense_budget() == want
+
+
+@pytest.mark.parametrize("block_rows", [None, 7])
+@pytest.mark.parametrize("count_dtype", [jnp.int8, jnp.bfloat16,
+                                         jnp.float32])
+def test_dense_contractions_exact_over_row_blocks(monkeypatch, block_rows,
+                                                  count_dtype):
+    """Dense contractions run over row blocks (a remainder block
+    included) at HIGHEST precision: with f32 weights they equal the f64
+    product of the same weights to f32 rounding, for positive
+    posteriors and signed log weights alike."""
+    from vireo_tpu.ops import counts as C
+    rng = np.random.RandomState(3)
+    V, C_, K = 60, 90, 16
+    DP = (rng.rand(V, C_) < 0.5) * rng.randint(1, 120, (V, C_))
+    AD = rng.binomial(DP, 0.4)
+    if block_rows is not None:
+        itemsize = jnp.dtype(count_dtype).itemsize
+        monkeypatch.setattr(C, "ROW_BLOCK_BYTES", block_rows * C_ * itemsize)
+    c = C.DenseCounts(jnp.asarray(AD, count_dtype),
+                      jnp.asarray(DP, count_dtype))
+    f32 = lambda x: jnp.asarray(x, jnp.float32)  # noqa: E731
+    W, Wa, Wd = (f32(x) for x in (rng.rand(C_, K), rng.randn(V, K) * 3,
+                                  -rng.gamma(2.0, 1.0, (V, K))))
+    got = c.suff_stats(W) + (c.cell_loglik(Wa, Wd),)
+    W, Wa, Wd = (np.asarray(x, np.float64) for x in (W, Wa, Wd))
+    want = (AD @ W, DP @ W, AD.T @ Wa + DP.T @ Wd)
+    for g, w in zip(got, want):
+        assert g.dtype == jnp.float32 and g.shape == w.shape
+        np.testing.assert_allclose(np.asarray(g, np.float64), w,
+                                   rtol=1e-5, atol=1e-4)

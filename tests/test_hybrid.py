@@ -3,7 +3,8 @@
 The hybrid layout splits integer counts linearly around a cap
 (X = min(X, cap) + overflow), so every linear contraction must be
 EXACT vs the f64 dense reference up to the base layout's matmul class
-(int8->bf16 inputs are exact integers <= 127; packed kernels are f32).
+(int8->bf16 inputs are exact integers <= 127; packed blocks unpack
+to the same int8 operand).
 The binomial-coefficient sum is non-linear and covered by a build-time
 scalar correction.
 """

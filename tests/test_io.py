@@ -199,3 +199,24 @@ def test_read_vartrix_and_cli_route(tmp_path, reference):
                          donor[named & (ids >= 0)])[0]
     acc = conf.max(axis=1).sum() / conf.sum()
     assert acc > 0.95
+
+
+def test_cli_runs_without_matplotlib(tmp_path, monkeypatch, capsys):
+    """matplotlib is optional (setup.py extra "plot"): without it the
+    CLI skips the figure, says so, and writes everything else."""
+    import sys
+    from vireo_tpu.sim.synth import synth_pool_counts, write_cellsnp_dir
+    from vireo_tpu.cli import vireo_cli
+
+    pool = synth_pool_counts(n_var=300, n_cell=120, n_donor=3,
+                             density=0.3, seed=2)
+    cell_dir = str(tmp_path / "cellsnp")
+    write_cellsnp_dir(cell_dir, pool["AD"], pool["DP"])
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    out = tmp_path / "out"
+    vireo_cli.main(["-c", cell_dir, "-N", "3", "-o", str(out),
+                    "--nInit", "3", "--randSeed", "2"])
+    assert "matplotlib is not installed" in capsys.readouterr().out
+    assert (out / "donor_ids.tsv").exists()
+    assert (out / "GT_donors.vireo.vcf.gz").exists()
+    assert not list(out.glob("fig_*"))

@@ -97,7 +97,7 @@ def test_wrap_seeded_device_mt_equals_host_path(small_data, monkeypatch):
 
 
 def test_float32_stream_is_deterministic_and_close():
-    """The non-x64 (TPU) f32 transform: deterministic and within
+    """The non-x64 f32 transform: deterministic and within
     ~1e-7 relative of the f64 stream."""
     np.random.seed(9)
     saved = np.random.get_state()

@@ -1,6 +1,7 @@
 """Native C++ IO parser: bit-parity with the pure-Python readers on the
 bundled reference data, plus fallback behavior."""
 
+import os
 import numpy as np
 import pytest
 
@@ -422,3 +423,21 @@ def test_native_hybrid_rung_matches_numpy_path(native, monkeypatch):
               for x in got.suff_stats(CT.jnp.asarray(W)))
     np.testing.assert_allclose(S1, A @ W, rtol=1e-10)
     np.testing.assert_allclose(SS, D @ W, rtol=1e-10)
+
+
+def test_native_library_keyed_on_source_content(monkeypatch, tmp_path):
+    """The library path follows the source's content, not its mtime: a
+    copy with the same bytes maps to the same name, an edited copy to
+    another, so a library built from other source is never loaded."""
+    import shutil
+    from vireo_tpu.io._native import build
+    src = tmp_path / "vcfio.cpp"
+    shutil.copy(build._SRC, src)
+    here = build.so_path()
+    monkeypatch.setattr(build, "_SRC", str(src))
+    os.utime(src, (0, 0))
+    assert build.so_path() == here
+    with open(src, "a") as f:
+        f.write("\n// edited\n")
+    assert build.so_path() != here
+    assert os.path.basename(build.so_path()).startswith("_vcfio-")

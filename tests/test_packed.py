@@ -1,8 +1,9 @@
 """PackedCounts (4-bit nibble layout) parity vs the dense backend.
 
-The packed kernels run in Pallas interpret mode on CPU; contractions
-are bf16-matmul class (same tolerance as the int8 MXU rung), while the
-reductions (binom coeff, row sums, per-cell var counts) are exact.
+The packed contractions are plain XLA: row blocks unpacked into the
+int8 dense rung's operand, so they carry that rung's tolerance on a
+device; the reductions (binom coeff, row sums, per-cell var counts)
+are exact.
 """
 
 import numpy as np
@@ -13,6 +14,7 @@ import pytest
 from vireo_tpu.ops.counts import (dense_counts, sparse_counts,
                                   counts_from_scipy, DenseCounts,
                                   SparseCounts)
+from vireo_tpu.ops import counts as counts_mod
 from vireo_tpu.ops.packed import PackedCounts, pack_dense, PACK_MAX
 
 
@@ -195,3 +197,31 @@ def test_packed_cell_slice_unpacks_byte_range(start, stop):
     sl = pc.cell_slice(start, stop)
     np.testing.assert_array_equal(np.asarray(sl.ad), ad[:, start:stop])
     np.testing.assert_array_equal(np.asarray(sl.dp), dp[:, start:stop])
+
+
+@pytest.mark.parametrize("n_cell", [7, 53])
+@pytest.mark.parametrize("K", [1, 16])
+@pytest.mark.parametrize("block_rows", [None, 4])
+def test_xla_packed_contraction_matches_dense(monkeypatch, n_cell, K,
+                                              block_rows):
+    """Both packed contractions equal the f64 dense ones at odd cell
+    counts, K=1 and K=16, unchunked and over 4-row blocks with a
+    remainder block (37 rows)."""
+    rng = np.random.RandomState(n_cell + K)
+    V = 37
+    DP = rng.binomial(1, 0.4, size=(V, n_cell)) * rng.randint(
+        1, 16, (V, n_cell))
+    AD = rng.binomial(DP, 0.4)
+    if block_rows is not None:
+        monkeypatch.setattr(counts_mod, "ROW_BLOCK_BYTES",
+                            block_rows * -(-n_cell // 2))
+    p = pack_dense(AD.astype(np.float64), DP.astype(np.float64))
+    d = dense_counts(AD, DP, dtype=jnp.float64)
+    W = jnp.asarray(rng.rand(n_cell, K))
+    Wa = jnp.asarray(rng.randn(V, K))
+    Wd = jnp.asarray(rng.randn(V, K))
+    for got, want in zip(p.suff_stats(W) + (p.cell_loglik(Wa, Wd),),
+                         d.suff_stats(W) + (d.cell_loglik(Wa, Wd),)):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   rtol=1e-12, atol=1e-12)

@@ -409,7 +409,7 @@ def test_vireo_wrap_on_mesh_packed():
 def test_dense_sharded_matches_single_device(small_data):
     """The multi-process DENSE path (shard_map over per-shard dense
     blocks, psum'd variant statistics) reproduces the single-device
-    fit — same contract as the COO path at MXU-matmul speed."""
+    fit — same contract as the COO path, as dense matrix products."""
     from vireo_tpu.parallel.mesh import (build_cell_sharded_dense,
                                          sharded_fit_vb_dense)
     AD, DP, _ = small_data

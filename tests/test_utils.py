@@ -1,5 +1,6 @@
 """Model-selection sweep, checkpointing, and timing utilities."""
 
+import pytest
 import numpy as np
 import jax.numpy as jnp
 
@@ -165,21 +166,28 @@ def test_vireo_profile_env_captures_trace(tmp_path, monkeypatch,
     assert found, "no profiler artifacts written"
 
 
-def test_compile_cache_default(monkeypatch):
-    """CLIs default to the per-user persistent compile cache; the env
-    var overrides and empty disables."""
-    from vireo_tpu.utils import platform as P
-    monkeypatch.setenv("XDG_CACHE_HOME", "/tmp/xdgtest")
-    assert P.default_compile_cache() == \
-        "/tmp/xdgtest/vireo_tpu/jax_cache"
+@pytest.mark.parametrize("env_dir", [None, "/tmp/jax_cache_from_env"])
+def test_compile_cache_default(monkeypatch, env_dir):
+    """JAX_COMPILATION_CACHE_DIR, when set, is left to JAX and nothing
+    else is set; unset, the cache goes to <checkout>/.jax_cache."""
+    import os
     import jax
-    monkeypatch.delenv("VIREO_COMPILE_CACHE", raising=False)
-    P.apply_platform_env(default_cache=True)
-    assert jax.config.jax_compilation_cache_dir == \
-        "/tmp/xdgtest/vireo_tpu/jax_cache"
-    monkeypatch.setenv("VIREO_COMPILE_CACHE", "/tmp/othercache")
-    P.apply_platform_env(default_cache=True)
-    assert jax.config.jax_compilation_cache_dir == "/tmp/othercache"
+    from vireo_tpu.utils import platform as P
+    checkout = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert P.DEFAULT_CACHE_DIR == os.path.join(checkout, ".jax_cache")
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        if env_dir is None:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            assert P.apply_compile_cache() == P.DEFAULT_CACHE_DIR
+            assert jax.config.jax_compilation_cache_dir == \
+                P.DEFAULT_CACHE_DIR
+        else:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+            assert P.apply_compile_cache() is None
+            assert jax.config.jax_compilation_cache_dir == before
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
 
 
 def test_host_fetch_parallel_exact(monkeypatch):

@@ -1,9 +1,9 @@
-"""vireo-tpu: a TPU-native genotype-donor deconvolution engine.
+"""vireo-tpu: a JAX-native genotype-donor deconvolution engine.
 
 A from-scratch JAX/XLA framework with the capabilities of
 single-cell-genetics/vireo (variational demultiplexing of pooled
 single-cell RNA-seq, clone reconstruction, bulk deconvolution), designed
-TPU-first: jit-compiled coordinate-ascent VB over sparse allele-count
+accelerator-first: jit-compiled coordinate-ascent VB over sparse allele-count
 matrices, vmapped multi-init restarts, and cell-sharded data-parallel
 execution over a `jax.sharding.Mesh`.
 

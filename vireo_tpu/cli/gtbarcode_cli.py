@@ -49,8 +49,8 @@ def build_parser():
 
 
 def main(argv=None):
-    from ..utils.platform import apply_platform_env
-    apply_platform_env(default_cache=True)
+    from ..utils.platform import apply_compile_cache
+    apply_compile_cache()
     if argv is None:
         argv = sys.argv[1:]
     if len(argv) == 0:

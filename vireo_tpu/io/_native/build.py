@@ -1,23 +1,32 @@
 """Compile-on-first-use loader for the native VCF/mtx parser.
 
-Builds `vcfio.cpp` into `_vcfio.so` with the system g++ (no pybind11 —
-plain C ABI + ctypes), caching the binary next to the source keyed on
-source mtime.  If no toolchain is present, `lib()` returns None and the
-pure-Python readers take over.
+Builds `vcfio.cpp` with the system g++ (no pybind11 — plain C ABI +
+ctypes) into `_vcfio-<hash>.so` next to the source, where <hash> is
+the source's content hash: a library built from other source is never
+loaded, whatever its mtime. A library that exists but does not load
+(built on another system) is rebuilt once. If no toolchain is present,
+`lib()` returns None and the pure-Python readers take over.
 """
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "vcfio.cpp")
-_SO = os.path.join(_HERE, "_vcfio.so")
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
+
+
+def so_path():
+    """Where the library built from the current source lives."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_HERE, "_vcfio-%s.so" % digest)
 
 
 class CellVcfView(ctypes.Structure):
@@ -38,26 +47,35 @@ class CellVcfView(ctypes.Structure):
     ]
 
 
+def _compile(so):
+    tmp = so + ".%d.tmp" % os.getpid()
+    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
+           _SRC, "-o", tmp, "-lz"]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, so)  # atomic vs concurrent builders
+        return True
+    except (OSError, subprocess.SubprocessError):
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        return False
+
+
 def _build():
     if os.environ.get("VIREO_NO_NATIVE"):
         return None
-    stale = (not os.path.exists(_SO)
-             or os.path.getmtime(_SO) < os.path.getmtime(_SRC))
-    if stale:
-        tmp = _SO + ".%d.tmp" % os.getpid()
-        cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-               _SRC, "-o", tmp, "-lz"]
-        try:
-            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-            os.replace(tmp, _SO)  # atomic vs concurrent builders
-        except (OSError, subprocess.SubprocessError):
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-            return None
-    try:
-        lib = ctypes.CDLL(_SO)
-    except OSError:
+    so = so_path()
+    if not os.path.exists(so) and not _compile(so):
         return None
+    try:
+        lib = ctypes.CDLL(so)
+    except OSError:
+        if not _compile(so):
+            return None
+        try:
+            lib = ctypes.CDLL(so)
+        except OSError:
+            return None
     lib.cellvcf_load.restype = ctypes.POINTER(CellVcfView)
     lib.cellvcf_load.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
                                  ctypes.c_char_p, ctypes.c_int]

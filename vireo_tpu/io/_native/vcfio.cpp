@@ -3,7 +3,7 @@
 // The reference loads cell VCFs through a pure-Python line loop
 // (/root/reference/vireoSNP/utils/vcf_utils.py:80-159 feeding :12-77),
 // which dominates end-to-end wall clock once the engine itself runs on
-// TPU.  This translation unit is a from-scratch C++17 streaming parser
+// an accelerator.  This translation unit is a from-scratch C++17 streaming parser
 // that produces exactly the arrays the engine needs — variant ids,
 // sample ids, the 8 fixed columns, and per-FORMAT-tag CSR value arrays
 // over non-missing entries — in one pass over the (b)gzip stream.

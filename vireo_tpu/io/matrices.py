@@ -14,7 +14,7 @@ import numpy as np
 from .vcf import load_VCF, match_SNPs
 
 __all__ = ["match_donor_VCF", "read_cellSNP", "read_vartrix", "read_mtx",
-           "write_donor_id", "make_whitelists"]
+           "donor_calls", "write_donor_id", "make_whitelists"]
 
 
 def read_mtx(path):
@@ -139,6 +139,18 @@ def _matrix_rows(names, mat, fmt, tail=None):
         yield cells
 
 
+def donor_calls(res_vireo, donor_names, n_vars):
+    """The `donor_id` column of donor_ids.tsv: the best singlet donor,
+    "unassigned" below 0.9 or with < 10 covered variants, "doublet" at
+    a doublet probability >= 0.9."""
+    singlet_p = res_vireo['ID_prob']
+    hard_call = np.array(donor_names, "U100")[np.argmax(singlet_p, 1)]
+    hard_call[np.max(singlet_p, axis=1) < 0.9] = "unassigned"
+    hard_call[np.max(res_vireo['doublet_prob'], axis=1) >= 0.9] = "doublet"
+    hard_call[np.asarray(n_vars) < 10] = "unassigned"
+    return hard_call
+
+
 def write_donor_id(out_dir, donor_names, cell_names, n_vars, res_vireo):
     """Write donor_ids.tsv, summary.tsv, probability tables and the log
     (io_utils.py:91-170). Output is byte-identical to the reference —
@@ -154,10 +166,7 @@ def write_donor_id(out_dir, donor_names, cell_names, n_vars, res_vireo):
     pair_names = [",".join(x) for x in combinations(donor_names, 2)]
     best_pair = np.array(pair_names, "U100")[np.argmax(pair_p, 1)]
 
-    hard_call = best_singlet.copy()
-    hard_call[top_singlet < 0.9] = "unassigned"
-    hard_call[top_pair >= 0.9] = "doublet"
-    hard_call[np.asarray(n_vars) < 10] = "unassigned"
+    hard_call = donor_calls(res_vireo, donor_names, n_vars)
 
     with open(out_dir + "/_log.txt", "w") as fh:
         fh.write("logLik: %.3e\n" % (res_vireo['LB_doublet']))

@@ -1,5 +1,4 @@
 from . import vireo
-from . import vireo_fused
 from . import doublet
 from . import bmm
 from . import bulk

@@ -1,7 +1,8 @@
 """Host-side ID/donor matching utilities.
 
 These are tiny O(K^2) / O(n log n) host operations (donor alignment,
-label matching); they orchestrate device kernels but never run on TPU.
+label matching); they orchestrate device kernels but never run on the
+device.
 Functional equivalents of vireo_base.py:130-254 and base_utils.py:3-31,
 implemented with vectorized numpy rather than the reference's loops.
 """

@@ -3,8 +3,9 @@
 Functional equivalents of the reference math library
 (/root/reference/vireoSNP/utils/vireo_base.py:7-127): softmax helpers,
 Beta-distribution KL in closed form, and log-binomial coefficients.
-All functions are pure jnp and dtype-polymorphic; on TPU they run in
-float32 by default, while CPU verification tests may enable float64.
+All functions are pure jnp and dtype-polymorphic; on the device they
+run in float32 by default, while CPU verification tests may enable
+float64.
 """
 
 import jax

@@ -5,8 +5,7 @@ draws from the global ``np.random`` MT19937 stream
 (/root/reference/vireoSNP/utils/vireo_wrap.py:52-54,
 vireo_model.py:95-104). The host-parity path assembles those draws on
 host and uploads them — ~240 MB of incompressible float32 at the
-100k-cell north star, the dominant cost of a seeded run over a slow
-accelerator link.
+100k-cell scale.
 
 This module regenerates the SAME stream on device from ~2.5 MB of
 state:
@@ -26,10 +25,9 @@ state:
   ``((a >> 5) * 2^26 + (b >> 6)) / 2^53`` — exact in f64 (the integer
   has <= 53 bits and the divisor is a power of two), so with x64
   enabled the device stream is BIT-IDENTICAL to ``np.random.rand``.
-  Without x64 (TPU production) the transform rounds once to f32:
-  deterministic, ~1e-7 relative from the host values, which preserves
-  init quality but not bit parity — the wrap therefore gates this
-  path on stream sizes where demo-scale goldens never land.
+  An f32 stream rounds the transform once (deterministic, ~1e-7
+  relative), so the seeded init (`engine.wrap._mt_batched_init`) asks
+  for f64 under a scoped x64 and casts only its normalized result.
 
 ``np_pairwise_sum_last`` mirrors numpy's pairwise summation order for
 the per-restart normalizations so the x64 path reproduces the host
@@ -150,9 +148,8 @@ def _device_stream_jit(states, p0, c_blocks, n_total, dtype_name):
     dtype = jnp.dtype(dtype_name)
     w = _words(states, p0, c_blocks)          # (D, 624c)
     D = w.shape[0]
-    # even/odd column slices, NOT a (N, 2) reshape: TPU tiles the
-    # trailing dims to (8, 128) lanes, so an (N, 2) u32 tensor pads
-    # 64x (~31 GB of HLO temp at 61M doubles — measured OOM)
+    # even/odd column slices of the word stream: words (2i, 2i+1)
+    # make double i
     a = (w[:, 0::2] >> 5).astype(dtype)       # (D, 312c)
     b = (w[:, 1::2] >> 6).astype(dtype)
     vals = (a * dtype.type(67108864.0) + b) \

@@ -1,38 +1,32 @@
 """4-bit nibble-packed dense counts: the capacity rung of the ladder.
 
 ScRNA allele counts are tiny integers; whenever every AD/DP value is
-<= 15, two cells fit in one byte. The packed layout halves the HBM
-footprint of the dense MXU representation, doubling the pool size a
-single chip can hold dense — precisely the region where the only
-alternative, the COO segment-sum fallback, is ~50x slower (TPUs have
-no fast per-entry gather; see benchmarks/RESULTS.md).
+<= 15, two cells fit in one byte. The packed layout halves the device
+footprint of the int8 dense layout, doubling the pool one card can
+hold dense. The ladder (`counts.counts_from_scipy`) takes it only when
+int8 dense does not fit the memory budget.
 
-Speed: the EM contractions at K=16 are MXU-lane-floor-bound (only
-16/128 output lanes are useful), so reading half the bytes does NOT
-make iterations faster — the packed kernels measure ~7% slower per
-pass than the int8 rung (the VPU nibble unpack). PackedCounts is
-therefore chosen only when int8 does not fit the HBM budget.
+Layout: `ad_p`/`dp_p` are (n_var, ceil(n_cell / 2)) int8 where byte
+[v, j] holds the counts of cells (2j, 2j+1) in its (low, high) nibble;
+an odd cell count leaves a zero high nibble in the last column.
 
-Layout: `ad_p`/`dp_p` are (Vp, Cp2) int8 where byte [v, j] holds the
-counts of cells (2j, 2j+1) in its (low, high) nibble. Vp/Cp2 are padded
-to the kernel block grid at construction; padding bytes are zero.
-Mosaic on this chip supports neither int8 shifts nor uint8 casts, so
-the kernels unpack via an int32 roundtrip (see benchmarks/unpack_probe).
+Contractions are plain XLA. Each block of variant rows is unpacked
+(`p & 0xF`, `(p >> 4) & 0xF`) and contracted against the even/odd cell
+halves of the weights with the dense rung's product (`counts.fold_rows`,
+`counts.count_dot`), so the unpacked temporary is bounded by one row
+block whatever the pool size.
 
 Reference data path being replaced: scipy CSC spMMs in
-/root/reference/vireoSNP/utils/vireo_model.py:165-219.
+vireoSNP/utils/vireo_model.py:165-219.
 """
 
 import dataclasses
-import functools
-import math as _pymath
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
+from .counts import DenseCounts, fold_rows, count_dot
 from .math import log_binom_coeff
 
 __all__ = ["PackedCounts", "MeshPackedCounts", "pack_dense",
@@ -41,97 +35,26 @@ __all__ = ["PackedCounts", "MeshPackedCounts", "pack_dense",
 PACK_MAX = 15  # largest count a nibble holds exactly
 
 
-def _round_up(n, m):
-    return int(_pymath.ceil(max(int(n), 1) / m) * m)
-
-
-def _interpret():
-    """Pallas interpret mode off-TPU (tests / forced-CPU CLI runs)."""
-    return jax.default_backend() != "tpu"
-
-
-def _unpack_i32(p):
-    """int8 packed block -> (lo, hi) int32 planes (two's complement:
-    `& 0xF` after an arithmetic shift recovers unsigned nibbles)."""
-    p = p.astype(jnp.int32)
+def _unpack(p):
+    """Packed bytes -> (lo, hi) nibble planes in p's dtype (an
+    arithmetic shift sign-extends; the mask recovers the unsigned high
+    nibble)."""
     return p & 0xF, (p >> 4) & 0xF
 
 
-# --------------------------------------------------------------------
-# kernel 1: variant-side sufficient statistics
-#   S1 = AD @ W, SS = DP @ W   for W (n_cell, K)
-# grid (I, J): I = var blocks, J = packed-cell blocks (J fastest, so
-# each (BV, 2K) output block stays resident while J sweeps the cells)
-# --------------------------------------------------------------------
-
-def _suff_kernel(ad_ref, dp_ref, we_ref, wo_ref, s_ref, *, K):
-    j = pl.program_id(1)
-    we, wo = we_ref[:], wo_ref[:]
-
-    def contract(p_ref):
-        # counts enter the MXU as f32 (nibbles are exact in any float);
-        # weights stay f32 like the int8 dense rung (counts.py:68-92) —
-        # the MXU's default-precision truncation applies uniformly
-        # instead of a pre-rounded bf16 weight copy.
-        lo, hi = _unpack_i32(p_ref[:])
-        acc = jnp.dot(lo.astype(jnp.float32), we,
-                      preferred_element_type=jnp.float32)
-        acc += jnp.dot(hi.astype(jnp.float32), wo,
-                       preferred_element_type=jnp.float32)
-        return acc
-
-    @pl.when(j == 0)
-    def _():
-        s_ref[:] = jnp.zeros_like(s_ref)
-
-    s_ref[:, :K] += contract(ad_ref)
-    s_ref[:, K:] += contract(dp_ref)
-
-
-# --------------------------------------------------------------------
-# kernel 2: cell-side log-likelihood
-#   out = AD.T @ Wa + DP.T @ Wd   -> (n_cell, K)
-# grid (J, I): J = packed-cell blocks, I = var blocks (I fastest);
-# even/odd outputs are interleaved to cell order by the caller
-# --------------------------------------------------------------------
-
-def _loglik_kernel(ad_ref, dp_ref, wa_ref, wd_ref, oe_ref, oo_ref):
-    i = pl.program_id(1)
-    wa, wd = wa_ref[:], wd_ref[:]
-    dn = (((0,), (0,)), ((), ()))  # contract the variant axis
-
-    ad_lo, ad_hi = _unpack_i32(ad_ref[:])
-    dp_lo, dp_hi = _unpack_i32(dp_ref[:])
-
-    oe = jax.lax.dot_general(ad_lo.astype(jnp.float32), wa, dn,
-                             preferred_element_type=jnp.float32)
-    oe += jax.lax.dot_general(dp_lo.astype(jnp.float32), wd, dn,
-                              preferred_element_type=jnp.float32)
-    oo = jax.lax.dot_general(ad_hi.astype(jnp.float32), wa, dn,
-                             preferred_element_type=jnp.float32)
-    oo += jax.lax.dot_general(dp_hi.astype(jnp.float32), wd, dn,
-                              preferred_element_type=jnp.float32)
-
-    @pl.when(i == 0)
-    def _():
-        oe_ref[:] = jnp.zeros_like(oe_ref)
-        oo_ref[:] = jnp.zeros_like(oo_ref)
-
-    oe_ref[:] += oe
-    oo_ref[:] += oo
+def _interleave(even, odd):
+    """(n, ...) even-cell and odd-cell planes -> (2n, ...) cell order."""
+    return jnp.stack([even, odd], axis=1).reshape(
+        (2 * even.shape[0],) + even.shape[1:])
 
 
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class PackedCounts:
     """Nibble-packed dense AD/DP counts (two cells per byte)."""
-    ad_p: jax.Array                 # (Vp, Cp2) int8
-    dp_p: jax.Array                 # (Vp, Cp2) int8
+    ad_p: jax.Array                 # (n_var, ceil(n_cell / 2)) int8
+    dp_p: jax.Array
     shape: tuple = dataclasses.field(metadata=dict(static=True))
-    block_v: int = dataclasses.field(default=1024,
-                                     metadata=dict(static=True))
-    block_c: int = dataclasses.field(default=2048,
-                                     metadata=dict(static=True))
 
     @property
     def n_var(self):
@@ -141,223 +64,123 @@ class PackedCounts:
     def n_cell(self):
         return self.shape[1]
 
-    def _w_parity(self, W):
-        """Pad W (n_cell, K) to 2*Cp2 rows and split by cell parity.
-
-        Weights are kept f32 (not pre-rounded to bf16): interpret mode
-        is then exactly the dense-f32 contraction, and on TPU the MXU's
-        own default precision governs, same as the int8 dense rung."""
-        Cp2 = self.ad_p.shape[1]
-        W = jnp.pad(W.astype(jnp.float32),
-                    ((0, 2 * Cp2 - self.n_cell), (0, 0)))
-        return W[0::2], W[1::2]
+    def _fold(self, fn, init, *row_args):
+        return fold_rows(fn, init, self.ad_p, self.dp_p, *row_args)
 
     def suff_stats(self, W):
         """(AD @ W, DP @ W) for W (n_cell, K) -> two (n_var, K)."""
-        K = W.shape[1]
-        Vp, Cp2 = self.ad_p.shape
-        we, wo = self._w_parity(W)
-        grid = (Vp // self.block_v, Cp2 // self.block_c)
-        S = pl.pallas_call(
-            functools.partial(_suff_kernel, K=K),
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((self.block_v, self.block_c),
-                             lambda i, j: (i, j), memory_space=pltpu.VMEM),
-                pl.BlockSpec((self.block_v, self.block_c),
-                             lambda i, j: (i, j), memory_space=pltpu.VMEM),
-                pl.BlockSpec((self.block_c, K), lambda i, j: (j, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((self.block_c, K), lambda i, j: (j, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((self.block_v, 2 * K),
-                                   lambda i, j: (i, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((Vp, 2 * K), jnp.float32),
-            cost_estimate=pl.CostEstimate(
-                flops=2 * 2 * Vp * 2 * Cp2 * K,
-                bytes_accessed=2 * Vp * Cp2 + Vp * 2 * K * 4,
-                transcendentals=0),
-            interpret=_interpret(),
-        )(self.ad_p, self.dp_p, we, wo)
-        V = self.n_var
-        return (S[:V, :K].astype(W.dtype), S[:V, K:].astype(W.dtype))
+        Cp2 = self.ad_p.shape[1]
+        W = jnp.pad(W, ((0, 2 * Cp2 - self.n_cell), (0, 0)))
+        we, wo = W[0::2], W[1::2]
+
+        def fn(lo, a, d, acc):
+            a_lo, a_hi = _unpack(a)
+            d_lo, d_hi = _unpack(d)
+            put = jax.lax.dynamic_update_slice_in_dim
+            return (put(acc[0], count_dot(a_lo, we) + count_dot(a_hi, wo),
+                        lo, 0),
+                    put(acc[1], count_dot(d_lo, we) + count_dot(d_hi, wo),
+                        lo, 0))
+
+        z = jnp.zeros((self.n_var, W.shape[1]), W.dtype)
+        return self._fold(fn, (z, z))
 
     def cell_loglik(self, Wa, Wd):
         """AD.T @ Wa + DP.T @ Wd for (n_var, K) weights -> (n_cell, K)."""
-        K = Wa.shape[1]
-        Vp, Cp2 = self.ad_p.shape
-        pad_v = ((0, Vp - self.n_var), (0, 0))
-        wa = jnp.pad(Wa.astype(jnp.float32), pad_v)
-        wd = jnp.pad(Wd.astype(jnp.float32), pad_v)
-        grid = (Cp2 // self.block_c, Vp // self.block_v)
-        oe, oo = pl.pallas_call(
-            _loglik_kernel,
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((self.block_v, self.block_c),
-                             lambda j, i: (i, j), memory_space=pltpu.VMEM),
-                pl.BlockSpec((self.block_v, self.block_c),
-                             lambda j, i: (i, j), memory_space=pltpu.VMEM),
-                pl.BlockSpec((self.block_v, K), lambda j, i: (i, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((self.block_v, K), lambda j, i: (i, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=(
-                pl.BlockSpec((self.block_c, K), lambda j, i: (j, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((self.block_c, K), lambda j, i: (j, 0),
-                             memory_space=pltpu.VMEM),
-            ),
-            out_shape=(jax.ShapeDtypeStruct((Cp2, K), jnp.float32),
-                       jax.ShapeDtypeStruct((Cp2, K), jnp.float32)),
-            cost_estimate=pl.CostEstimate(
-                flops=2 * 2 * Vp * 2 * Cp2 * K,
-                bytes_accessed=2 * Vp * Cp2 + 2 * Cp2 * K * 4,
-                transcendentals=0),
-            interpret=_interpret(),
-        )(self.ad_p, self.dp_p, wa, wd)
-        out = jnp.stack([oe, oo], axis=1).reshape(2 * Cp2, K)
-        return out[:self.n_cell].astype(Wa.dtype)
+        def fn(lo, a, d, wa, wd, acc):
+            a_lo, a_hi = _unpack(a)
+            d_lo, d_hi = _unpack(d)
+            return (acc[0] + count_dot(a_lo.T, wa) + count_dot(d_lo.T, wd),
+                    acc[1] + count_dot(a_hi.T, wa) + count_dot(d_hi.T, wd))
 
-    # ---- reductions / reshapes (chunked XLA unpack; cold paths) -----
+        z = jnp.zeros((self.ad_p.shape[1], Wa.shape[1]), Wa.dtype)
+        even, odd = self._fold(fn, (z, z), Wa, Wd)
+        return _interleave(even, odd)[:self.n_cell]
 
-    def _row_chunks(self, fn, init, row_chunk=512):
-        """fold fn(ad_p_chunk, dp_p_chunk, acc) over row blocks."""
-        Vp = self.ad_p.shape[0]
-        row_chunk = min(row_chunk, Vp)
-        n_full = Vp // row_chunk
-
-        def body(i, acc):
-            a = jax.lax.dynamic_slice_in_dim(self.ad_p, i * row_chunk,
-                                             row_chunk, 0)
-            d = jax.lax.dynamic_slice_in_dim(self.dp_p, i * row_chunk,
-                                             row_chunk, 0)
-            return fn(a, d, acc)
-
-        acc = jax.lax.fori_loop(0, n_full, body, init)
-        if Vp - n_full * row_chunk:
-            acc = fn(self.ad_p[n_full * row_chunk:],
-                     self.dp_p[n_full * row_chunk:], acc)
-        return acc
+    # ---- reductions / reshapes (cold paths) -------------------------
 
     def binom_coeff_sum(self):
-        """Sum of log C(DP, AD); padding bytes hold (0, 0) -> 0 terms."""
+        """Sum of log C(DP, AD); padding nibbles hold (0, 0) -> 0 terms."""
         return _binom_coeff_sum(self)
 
     def _binom_coeff_sum_impl(self):
-        def fn(a, d, acc):
-            a_lo, a_hi = _unpack_i32(a)
-            d_lo, d_hi = _unpack_i32(d)
+        def fn(lo, a, d, acc):
+            a_lo, a_hi = _unpack(a.astype(jnp.int32))
+            d_lo, d_hi = _unpack(d.astype(jnp.int32))
             return (acc + jnp.sum(log_binom_coeff(d_lo, a_lo))
                     + jnp.sum(log_binom_coeff(d_hi, a_hi)))
         # accumulate in log_binom_coeff's result dtype (f64 under x64),
-        # matching the dense path — a fixed-f32 carry TypeErrors in the
-        # fori_loop when x64 promotes the chunk sums.
+        # matching the dense path
         acc_dtype = jax.eval_shape(
             log_binom_coeff,
             jax.ShapeDtypeStruct((1,), jnp.int32),
             jax.ShapeDtypeStruct((1,), jnp.int32)).dtype
-        return self._row_chunks(fn, jnp.zeros((), acc_dtype))
+        return self._fold(fn, jnp.zeros((), acc_dtype))
 
     def row_sums(self):
         return _row_sums(self)
 
     def _row_sums_impl(self):
-        """(AD.sum(axis=1), DP.sum(axis=1)); row-chunked slice writes."""
-        Vp = self.ad_p.shape[0]
+        """(AD.sum(axis=1), DP.sum(axis=1))."""
+        def fn(lo, a, d, acc):
+            a_lo, a_hi = _unpack(a.astype(jnp.int32))
+            d_lo, d_hi = _unpack(d.astype(jnp.int32))
+            put = jax.lax.dynamic_update_slice_in_dim
+            return (put(acc[0], jnp.sum(a_lo + a_hi, axis=1).astype(
+                        jnp.float32), lo, 0),
+                    put(acc[1], jnp.sum(d_lo + d_hi, axis=1).astype(
+                        jnp.float32), lo, 0))
 
-        def sums(a, d):
-            a_lo, a_hi = _unpack_i32(a)
-            d_lo, d_hi = _unpack_i32(d)
-            return (jnp.sum(a_lo + a_hi, axis=1).astype(jnp.float32),
-                    jnp.sum(d_lo + d_hi, axis=1).astype(jnp.float32))
-
-        row_chunk = min(512, Vp)
-        n_full = Vp // row_chunk
-        ad_out = jnp.zeros((Vp,), jnp.float32)
-        dp_out = jnp.zeros((Vp,), jnp.float32)
-
-        def body(i, carry):
-            ad_out, dp_out = carry
-            a = jax.lax.dynamic_slice_in_dim(self.ad_p, i * row_chunk,
-                                             row_chunk, 0)
-            d = jax.lax.dynamic_slice_in_dim(self.dp_p, i * row_chunk,
-                                             row_chunk, 0)
-            sa, sd = sums(a, d)
-            ad_out = jax.lax.dynamic_update_slice_in_dim(
-                ad_out, sa, i * row_chunk, 0)
-            dp_out = jax.lax.dynamic_update_slice_in_dim(
-                dp_out, sd, i * row_chunk, 0)
-            return ad_out, dp_out
-
-        ad_out, dp_out = jax.lax.fori_loop(0, n_full, body,
-                                           (ad_out, dp_out))
-        if Vp - n_full * row_chunk:
-            sa, sd = sums(self.ad_p[n_full * row_chunk:],
-                          self.dp_p[n_full * row_chunk:])
-            ad_out = ad_out.at[n_full * row_chunk:].set(sa)
-            dp_out = dp_out.at[n_full * row_chunk:].set(sd)
-        V = self.n_var
-        return ad_out[:V], dp_out[:V]
+        z = jnp.zeros((self.n_var,), jnp.float32)
+        return self._fold(fn, (z, z))
 
     def n_vars_per_cell(self):
         return _n_vars_per_cell(self)
 
     def _n_vars_per_cell_impl(self):
-        Cp2 = self.ad_p.shape[1]
-
-        def fn(a, d, acc):
+        def fn(lo, a, d, acc):
             # dtype= pins the bool-sum to the carry dtype (x64 would
             # otherwise promote it to int64 and break the fori_loop)
-            d_lo, d_hi = _unpack_i32(d)
+            d_lo, d_hi = _unpack(d)
             return (acc[0] + jnp.sum(d_lo > 0, axis=0, dtype=jnp.int32),
                     acc[1] + jnp.sum(d_hi > 0, axis=0, dtype=jnp.int32))
 
-        even, odd = self._row_chunks(
-            fn, (jnp.zeros((Cp2,), jnp.int32), jnp.zeros((Cp2,), jnp.int32)))
-        out = jnp.stack([even, odd], axis=1).reshape(2 * Cp2)
-        return out[:self.n_cell]
+        z = jnp.zeros((self.ad_p.shape[1],), jnp.int32)
+        even, odd = self._fold(fn, (z, z))
+        return _interleave(even, odd)[:self.n_cell]
 
     def densify(self, dtype=jnp.int8):
         """Unpack to a DenseCounts (int8 by default; 2x the memory)."""
-        from .counts import DenseCounts
+        n_cell = self.n_cell
 
         @jax.jit
         def unpack(p):
-            lo, hi = _unpack_i32(p)
+            lo, hi = _unpack(p)
             full = jnp.stack([lo, hi], axis=2).reshape(p.shape[0], -1)
-            return full[:self.n_var, :self.n_cell].astype(dtype)
+            return full[:, :n_cell].astype(dtype)
 
         return DenseCounts(unpack(self.ad_p), unpack(self.dp_p))
 
     def var_subset(self, idx):
         idx = jnp.asarray(idx)
-        sub = PackedCounts(
-            ad_p=self.ad_p[idx], dp_p=self.dp_p[idx],
-            shape=(int(idx.shape[0]), self.n_cell),
-            block_v=self.block_v, block_c=self.block_c)
-        return _repad(sub)
+        return PackedCounts(ad_p=self.ad_p[idx], dp_p=self.dp_p[idx],
+                            shape=(int(idx.shape[0]), self.n_cell))
 
     def cell_slice(self, start, stop):
         """Unpack only the byte range covering [start, stop) — a full
-        densify would double the HBM footprint the packed rung exists
-        to avoid."""
-        from .counts import DenseCounts
+        densify would double the footprint the packed rung exists to
+        avoid."""
         start, stop = int(start), int(stop)
         b0, b1 = start // 2, -(-stop // 2)
+        off = start - 2 * b0
 
         @jax.jit
         def unpack(p):
-            lo, hi = _unpack_i32(p[:, b0:b1])
+            lo, hi = _unpack(p[:, b0:b1])
             full = jnp.stack([lo, hi], axis=2).reshape(p.shape[0], -1)
-            return full[:self.n_var].astype(jnp.int8)
+            return full[:, off:off + (stop - start)]
 
-        off = start - 2 * b0
-        return DenseCounts(unpack(self.ad_p)[:, off:off + (stop - start)],
-                           unpack(self.dp_p)[:, off:off + (stop - start)])
+        return DenseCounts(unpack(self.ad_p), unpack(self.dp_p))
 
 
 _binom_coeff_sum = jax.jit(PackedCounts._binom_coeff_sum_impl)
@@ -365,68 +188,35 @@ _row_sums = jax.jit(PackedCounts._row_sums_impl)
 _n_vars_per_cell = jax.jit(PackedCounts._n_vars_per_cell_impl)
 
 
-def _repad(pc):
-    """Re-pad a PackedCounts whose stored rows no longer match its
-    block grid (e.g. after var_subset gathered a row selection)."""
-    V, C = pc.shape
-    Vp, _, bv, _ = _pick_blocks(V, C, pc.block_v, pc.block_c)
-    cur = pc.ad_p.shape[0]
-    if Vp == cur and bv == pc.block_v:
-        return pc
-    pad = ((0, Vp - cur), (0, 0))
-    return dataclasses.replace(
-        pc, ad_p=jnp.pad(pc.ad_p[:Vp], pad if Vp > cur else ((0, 0), (0, 0))),
-        dp_p=jnp.pad(pc.dp_p[:Vp], pad if Vp > cur else ((0, 0), (0, 0))),
-        block_v=bv)
-
-
-def _pick_blocks(V, C, block_v, block_c):
-    """Shrink the default blocks to fit small matrices (tests)."""
-    Cp2_min = _round_up(-(-C // 2), 128)
-    bc = min(block_c, Cp2_min)
-    Cp2 = _round_up(-(-C // 2), bc)
-    Vp_min = _round_up(V, 8)
-    bv = min(block_v, Vp_min)
-    Vp = _round_up(V, bv)
-    return Vp, Cp2, bv, bc
-
-
-@functools.partial(jax.jit, static_argnames=("Vp", "Cp2"))
-def _pack_pair(x, Vp, Cp2):
-    """(V, C) integer counts -> (Vp, Cp2) int8 nibble bytes."""
-    V, C = x.shape
-    if C % 2:
+@jax.jit
+def _pack_pair(x):
+    """(V, C) integer counts -> (V, ceil(C / 2)) int8 nibble bytes."""
+    if x.shape[1] % 2:
         x = jnp.pad(x, ((0, 0), (0, 1)))
-    lo = x[:, 0::2].astype(jnp.int32)
-    hi = x[:, 1::2].astype(jnp.int32)
-    v = lo | (hi << 4)
-    v = jnp.where(v > 127, v - 256, v).astype(jnp.int8)
-    return jnp.pad(v, ((0, Vp - V), (0, Cp2 - v.shape[1])))
+    v = x[:, 0::2].astype(jnp.int32) | (x[:, 1::2].astype(jnp.int32) << 4)
+    return jnp.where(v > 127, v - 256, v).astype(jnp.int8)
 
 
-def pack_dense(ad, dp, shape=None, block_v=1024, block_c=2048,
-               check_range=True):
+def pack_dense(ad, dp, shape=None, check_range=True):
     """Build PackedCounts from (n_var, n_cell) count arrays (device or
-    host). All values must be in [0, 15]; `check_range` asserts this on
+    host). All values must be in [0, 15]; `check_range` checks this on
     host inputs (device inputs are the caller's responsibility — the
     counts_from_scipy ladder checks the max before packing)."""
     if hasattr(ad, "ad"):  # DenseCounts
         ad, dp = ad.ad, ad.dp
-    V, C = ad.shape
     if shape is None:
-        shape = (int(V), int(C))
+        shape = tuple(int(s) for s in ad.shape)
     if check_range and isinstance(ad, np.ndarray):
-        assert ad.min() >= 0 and ad.max() <= PACK_MAX, "AD out of range"
-        assert dp.min() >= 0 and dp.max() <= PACK_MAX, "DP out of range"
-    Vp, Cp2, bv, bc = _pick_blocks(V, C, block_v, block_c)
-    return PackedCounts(
-        ad_p=_pack_pair(jnp.asarray(ad), Vp=Vp, Cp2=Cp2),
-        dp_p=_pack_pair(jnp.asarray(dp), Vp=Vp, Cp2=Cp2),
-        shape=shape, block_v=bv, block_c=bc)
+        for name, x in (("AD", ad), ("DP", dp)):
+            if x.min() < 0 or x.max() > PACK_MAX:
+                raise ValueError("%s counts outside [0, %d]"
+                                 % (name, PACK_MAX))
+    return PackedCounts(ad_p=_pack_pair(jnp.asarray(ad)),
+                        dp_p=_pack_pair(jnp.asarray(dp)), shape=shape)
 
 
 # --------------------------------------------------------------------
-# mesh-sharded packed layout: the capacity rung on multi-chip pools
+# mesh-sharded packed layout: the capacity rung on multi-card pools
 # --------------------------------------------------------------------
 
 @jax.tree_util.register_dataclass
@@ -436,24 +226,22 @@ class MeshPackedCounts:
     packed-cell axis.
 
     Each device owns a self-contained packed block of `2 * c2_local`
-    consecutive cells (rounded to the kernel block grid, so global cell
-    indexing stays contiguous and W/loglik padding is a plain tail
-    pad). Every contraction shard_maps the single-device Pallas kernels
-    over the mesh: cell-side outputs stay sharded, variant-side
-    sufficient statistics are psum'd — the same collective pattern as
-    the dense GSPMD path (parallel/mesh.py), ~n_var * K * 4 B per call.
+    consecutive cells (so global cell indexing stays contiguous and
+    W/loglik padding is a plain tail pad). Every contraction shard_maps
+    the single-device PackedCounts contraction over the mesh: cell-side
+    outputs stay sharded, variant-side sufficient statistics are
+    psum'd — the same collective pattern as the dense GSPMD path
+    (parallel/mesh.py), ~n_var * K * 4 B per call.
 
     Extends the reference's only capacity mechanism (--cellRange manual
-    chunking, /root/reference/vireoSNP/vireo.py:136-142) to one
-    transparent multi-chip object.
+    chunking, vireoSNP/vireo.py:136-142) to one transparent multi-card
+    object.
     """
-    ad_p: jax.Array                 # (Vp, S * c2_local) int8, sharded
+    ad_p: jax.Array                 # (n_var, S * c2_local) int8, sharded
     dp_p: jax.Array
     shape: tuple = dataclasses.field(metadata=dict(static=True))
     mesh: object = dataclasses.field(metadata=dict(static=True))
     axis: str = dataclasses.field(metadata=dict(static=True))
-    block_v: int = dataclasses.field(metadata=dict(static=True))
-    block_c: int = dataclasses.field(metadata=dict(static=True))
 
     @property
     def n_var(self):
@@ -478,11 +266,9 @@ class MeshPackedCounts:
     def _local(self, ad_p, dp_p):
         """Shard-local view: padding cells are real zero-count cells."""
         return PackedCounts(ad_p=ad_p, dp_p=dp_p,
-                            shape=(self.n_var, 2 * ad_p.shape[1]),
-                            block_v=self.block_v, block_c=self.block_c)
+                            shape=(self.n_var, 2 * ad_p.shape[1]))
 
     def _shard_map(self, f, in_specs, out_specs):
-        from jax.sharding import PartitionSpec as P  # noqa: F401
         return jax.shard_map(f, mesh=self.mesh, in_specs=in_specs,
                              out_specs=out_specs, check_vma=False)
 
@@ -550,18 +336,11 @@ class MeshPackedCounts:
 
     def var_subset(self, idx):
         """Row gather on the replicated variant axis (GSPMD keeps the
-        cell sharding); rows re-padded to the block grid."""
-        idx = np.asarray(idx)
-        Vp_min = _round_up(len(idx), 8)
-        bv = min(self.block_v, Vp_min)
-        Vp = _round_up(len(idx), bv)
-        gather = np.concatenate([idx, np.zeros(Vp - len(idx), idx.dtype)])
-        mask = jnp.asarray(
-            (np.arange(Vp) < len(idx)).astype(np.int8))[:, None]
+        cell sharding)."""
+        idx = jnp.asarray(np.asarray(idx))
         return dataclasses.replace(
-            self, ad_p=self.ad_p[gather] * mask,
-            dp_p=self.dp_p[gather] * mask,
-            shape=(int(len(idx)), self.n_cell), block_v=bv)
+            self, ad_p=self.ad_p[idx], dp_p=self.dp_p[idx],
+            shape=(int(idx.shape[0]), self.n_cell))
 
     def cell_slice(self, start, stop):
         """Host-side fallback (--cellRange): gather only the byte range
@@ -573,13 +352,11 @@ class MeshPackedCounts:
         ad = host_fetch(self.ad_p[:, b0:b1])
         dp = host_fetch(self.dp_p[:, b0:b1])
         single = PackedCounts(ad_p=jnp.asarray(ad), dp_p=jnp.asarray(dp),
-                              shape=(self.n_var, 2 * (b1 - b0)),
-                              block_v=self.block_v, block_c=self.block_c)
+                              shape=(self.n_var, 2 * (b1 - b0)))
         off = start - 2 * b0
         return single.cell_slice(off, off + (stop - start))
 
     def densify(self, dtype=jnp.int8):
-        from .counts import DenseCounts
         from jax.sharding import PartitionSpec as P
         a = self.axis
 
@@ -593,12 +370,11 @@ class MeshPackedCounts:
         return DenseCounts(ad[:, :self.n_cell], dp[:, :self.n_cell])
 
 
-def pack_scipy_sharded(AD, DP, mesh, axis=None, block_v=1024,
-                       block_c=2048):
+def pack_scipy_sharded(AD, DP, mesh, axis=None):
     """Pack a scipy/numpy AD-DP pair into a MeshPackedCounts: cells are
-    split into equal per-device ranges (rounded up to the packed block
-    grid), each range packed host-side, and the concatenation placed as
-    one global array sharded along the packed-cell axis.
+    split into equal per-device ranges (an even cell count each), each
+    range packed host-side, and the concatenation placed as one global
+    array sharded along the packed-cell axis.
 
     All counts must fit a nibble (<= 15); the counts_from_scipy ladder
     checks the max first.
@@ -612,19 +388,12 @@ def pack_scipy_sharded(AD, DP, mesh, axis=None, block_v=1024,
     A = sp.csc_matrix(AD)
     D = sp.csc_matrix(DP)
     V, C = A.shape
-
-    c_local = -(-C // S)                       # cells per device
-    c2 = -(-c_local // 2)
-    bc = min(block_c, _round_up(c2, 128))
-    c2_local = _round_up(c2, bc)
-    c_local = 2 * c2_local                     # block-grid aligned
-    Vp_min = _round_up(V, 8)
-    bv = min(block_v, Vp_min)
-    Vp = _round_up(V, bv)
+    c2_local = -(-(-(-C // S)) // 2)           # packed columns per device
+    c_local = 2 * c2_local
 
     def pack_range(M, lo, hi):
         sub = sp.coo_matrix(M[:, lo:hi])
-        out = np.zeros((Vp, c2_local), np.uint8)
+        out = np.zeros((V, c2_local), np.uint8)
         vals = sub.data.astype(np.uint8) << ((sub.col & 1) * 4).astype(
             np.uint8)
         np.bitwise_or.at(out, (sub.row, sub.col // 2), vals)
@@ -639,4 +408,4 @@ def pack_scipy_sharded(AD, DP, mesh, axis=None, block_v=1024,
     ad_p = jax.device_put(jnp.asarray(np.concatenate(ad_blocks, 1)), sh)
     dp_p = jax.device_put(jnp.asarray(np.concatenate(dp_blocks, 1)), sh)
     return MeshPackedCounts(ad_p=ad_p, dp_p=dp_p, shape=(int(V), int(C)),
-                            mesh=mesh, axis=axis, block_v=bv, block_c=bc)
+                            mesh=mesh, axis=axis)

@@ -8,7 +8,7 @@ sharded across a `jax.sharding.Mesh`:
 - AD/DP (COO triplets grouped by owning shard) and ID_prob live
   cell-sharded; GT_prob / theta are replicated;
 - each EM iteration psums the (n_var x K) sufficient statistics and
-  the scalar per-cell ELBO terms over the mesh (ICI collectives) —
+  the scalar per-cell ELBO terms over the mesh (NVLink collectives) —
   ~n_var*K*8B per step, trivially small vs compute;
 - the E-step is purely local to each shard.
 
@@ -87,10 +87,10 @@ def n_cell_shards(mesh):
 def initialize_distributed(coordinator_address=None, num_processes=None,
                            process_id=None):
     """Multi-host bring-up: `jax.distributed.initialize` with env-var
-    fallbacks, after which `jax.devices()` spans the pod slice and
-    `make_mesh()` builds the global cell mesh (ICI within a slice, DCN
-    across hosts — the per-iteration psum payload is only
-    ~n_var * n_donor * 8B, so scaling is compute-bound).
+    fallbacks, after which `jax.devices()` spans every process and
+    `make_mesh()` builds the global cell mesh (NVLink within a host,
+    the network across hosts — the per-iteration psum payload is only
+    ~n_var * n_donor * 8B).
 
     No-ops when already initialized or on a single process.
     """
@@ -173,9 +173,10 @@ def warm_restarts_auto(mesh, counts, states_batched, priors, cfg,
     """Multi-init warm fits on a mesh. Two fan-out layouts:
 
     - shard_axis="cells" (default): counts/ID_prob sharded over cells,
-      the restart axis vmapped — XLA batches the per-restart matmuls to
-      full MXU width while reading the data once, inserting the
-      per-iteration all-reduces. Right when the data dominates HBM.
+      the restart axis vmapped — XLA batches the per-restart matrix
+      products while reading the data once, inserting the
+      per-iteration all-reduces. Right when the data dominates device
+      memory.
     - shard_axis="restarts": data replicated, the restart batch split
       across devices — zero per-iteration communication (each device
       fits its own restarts; the best-ELBO argmax happens on the
@@ -368,7 +369,7 @@ def sharded_fit_vb_dense(mesh, ad, dp, meta, state, priors, cfg,
                          **fit_kwargs):
     """shard_map the full VB fit over cell-sharded DENSE blocks — the
     multi-process dense path (each process owns a contiguous cell
-    range as an MXU-ready dense block; variant-side statistics psum
+    range as a dense block; variant-side statistics psum
     over the mesh axis exactly like the COO path, ~n_var * K floats
     per iteration).
 

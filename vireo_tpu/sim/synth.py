@@ -10,9 +10,13 @@ mixed from donor pairs (cf. synth_pool.py:39-95 doublet pairing), and
 returns the ground-truth cell->donor table.
 """
 
+import gzip
+import os
+
 import numpy as np
 
-__all__ = ["synth_pool_counts", "synth_pool_dense_device"]
+__all__ = ["synth_pool_counts", "synth_pool_dense_device",
+           "write_cellsnp_dir"]
 
 
 def synth_pool_counts(n_var=30000, n_cell=100000, n_donor=16,
@@ -80,8 +84,7 @@ def synth_pool_dense_device(n_var=30000, n_cell=100000, n_donor=16,
                             theta=(0.01, 0.5, 0.99), seed=0,
                             row_chunk=2000):
     """Sample the same generative model entirely ON DEVICE as dense
-    int8 DenseCounts — no multi-GB host->device transfer (important
-    when the accelerator sits behind a slow link).
+    int8 DenseCounts — no multi-GB host->device transfer.
 
     Statistically matches `synth_pool_counts` (same density, depth and
     genotype model); bytes differ (different RNG). Generation is
@@ -155,3 +158,27 @@ def synth_pool_dense_device(n_var=30000, n_cell=100000, n_donor=16,
     counts = DenseCounts(ad8, dp8)
     return dict(counts=counts, donor=np.asarray(donor),
                 donor2=np.asarray(donor2), GT=np.asarray(GT))
+
+
+def write_cellsnp_dir(out_dir, AD, DP):
+    """Write AD/DP (n_var, n_cell) as a minimal cellSNP_mat directory
+    the readers and the `vireo -c` CLI accept: the two tag matrices,
+    a sites VCF (chromosome 1, positions 1..n_var) and cell barcodes
+    CELL000000-1, ...  Returns the barcodes."""
+    import scipy.io
+    import scipy.sparse as sp
+    os.makedirs(out_dir, exist_ok=True)
+    n_var, n_cell = AD.shape
+    for tag, M in (("AD", AD), ("DP", DP)):
+        scipy.io.mmwrite(os.path.join(out_dir, "cellSNP.tag.%s.mtx" % tag),
+                         sp.coo_matrix(M), field="integer")
+    with gzip.open(os.path.join(out_dir, "cellSNP.base.vcf.gz"),
+                   "wt") as f:
+        f.write("##fileformat=VCFv4.2\n")
+        f.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        f.writelines("1\t%d\t.\tA\tC\t.\tPASS\t.\n" % (i + 1)
+                     for i in range(n_var))
+    barcodes = ["CELL%06d-1" % c for c in range(n_cell)]
+    with open(os.path.join(out_dir, "cellSNP.samples.tsv"), "w") as f:
+        f.writelines(b + "\n" for b in barcodes)
+    return barcodes
